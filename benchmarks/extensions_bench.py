@@ -1,4 +1,4 @@
-"""Do the TPU-native extensions earn their keep? (VERDICT round-1 item 10)
+"""Do the sampler extensions earn their keep?
 
 Head-to-head ESS/sec of the two extensions against the batched-NUTS
 default, on the geometry each one targets:
@@ -12,7 +12,7 @@ default, on the geometry each one targets:
    so the mass matrix converges ~n_chain times faster in iterations;
    per-chain adaptation is still raw when the warmup budget is tight.
 
-Each case prints one JSON line; float32, 1024 chains, one chip.
+Each case prints one JSON line; float32, 1024 chains, one GPU.
 """
 
 import json
@@ -24,8 +24,8 @@ import numpy as np
 
 def main():
     import jax.numpy as jnp
-    import bayesfast_tpu as bf
-    from bayesfast_tpu.utils.acor import effective_sample_size
+    import bayesfast_jax as bf
+    from bayesfast_jax.utils.acor import effective_sample_size
 
     C = int(os.environ.get('BENCH_N_CHAIN', 1024))
     D = 64
@@ -81,15 +81,15 @@ def run_cauchy_tempered():
     interpolates the target with a unimodal Gaussian base, so chains cross
     between the +-5 modes through the base instead of tunneling.
 
-    Reports per sampler: ESS/sec/chip (Kish-weighted for TNUTS), the
+    Reports per sampler: ESS/sec (Kish-weighted for TNUTS), the
     cross-mode mixing rate (per-chain fraction of post-warmup sign flips of
     the first coordinate), and GBS logz on the post-warmup samples
     (systematically resampled by the tempering weights for TNUTS) against
     the reference fiducial -254.627.
     """
     import jax.numpy as jnp
-    import bayesfast_tpu as bf
-    from bayesfast_tpu.utils.acor import effective_sample_size
+    import bayesfast_jax as bf
+    from bayesfast_jax.utils.acor import effective_sample_size
 
     C = int(os.environ.get('BENCH_N_CHAIN', 1024))
     D, a = 48, 5.
@@ -167,4 +167,10 @@ def run_cauchy_tempered():
 
 
 if __name__ == '__main__':
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from _common import device_report, require_gpu, setup_cache
+    setup_cache()
+    require_gpu()
+    print(json.dumps({'device': device_report()}))
     main()

@@ -1,11 +1,10 @@
 """Micro-benchmark: SIT stacked-flow evaluation cost, float64 vs float32.
 
-TPU has no f64 hardware — XLA emulates double precision in software, so a
-float64 flow program pays a large multiple over float32. The SIT splines
-are FIT from float32 KDE-cdf values regardless of the run dtype, so
-evaluating the flow in f32 loses nothing that the fit had; this bench
-quantifies the wall gap at the ring-64 anchor's shape to justify the
-``flow_dtype`` default.
+The SIT splines are FIT from float32 KDE-cdf values regardless of the run
+dtype, so evaluating the flow in f32 loses nothing that the fit had; this
+bench measures the wall gap between a float64 and a float32 flow program
+at the ring-64 anchor's shape, which decides whether the float32
+``flow_dtype`` default is worth keeping. Exits non-zero without a GPU.
 """
 
 import os
@@ -16,16 +15,17 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from _common import setup_cache, sync
+from _common import device_report, require_gpu, setup_cache, sync
 
 setup_cache()
+require_gpu()
 
 import jax
 import jax.numpy as jnp
 
 jax.config.update('jax_enable_x64', True)
 
-from bayesfast_tpu.transforms.sit import _flow_forward, _flow_backward
+from bayesfast_jax.transforms.sit import _flow_forward, _flow_backward
 
 
 def bench(dtype, L=10, D=64, M=160, n=65536, reps=3):
@@ -75,6 +75,7 @@ if __name__ == '__main__':
     f32 = bench(jnp.float32)
     print(json.dumps({
         'metric': 'flow_dtype_bench', 'shape': 'L10 D64 M160 n65536',
+        'device': device_report(),
         'fwd_f64_s': round(f64[0], 3), 'bwd_f64_s': round(f64[1], 3),
         'fwd_f32_s': round(f32[0], 3), 'bwd_f32_s': round(f32[1], 3),
         'fwd_speedup': round(f64[0] / f32[0], 1),

@@ -9,19 +9,24 @@ through scipy lstsq serially (``modules/poly.py:529-587``) and evaluates
 through OpenMP Cython kernels (``modules/_poly.pyx``).
 
 Here: one multi-RHS lstsq on device for the fit; batched feature-matmul
-(MXU) eval. This script reports fit wall time and eval throughput, plus a
+eval. This script reports fit wall time and eval throughput, plus a
 full-width cubic-3 variant (the O(d^3) feature blowup case).
 """
 
 import json
+import os
+import sys
 import time
 
 import numpy as np
 
-import jax
-import jax.numpy as jnp
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bayesfast_tpu.modules import PolyConfig, PolyModel
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from bayesfast_jax.modules import PolyConfig, PolyModel  # noqa: E402
 
 
 def bench_config(name, model, D, n_fit, n_eval_batch, rng):
@@ -91,4 +96,8 @@ def main():
 
 
 if __name__ == '__main__':
+    from _common import device_report, require_gpu, setup_cache
+    setup_cache()
+    require_gpu()
+    print(json.dumps({'device': device_report()}))
     main()

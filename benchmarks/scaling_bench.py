@@ -1,7 +1,7 @@
-"""Chain-scaling study: throughput and ESS/sec/chip vs n_chain.
+"""Chain-scaling study: throughput and ESS/sec per device vs n_chain.
 
-The single-chip value proposition of the TPU build is that one chip runs
-thousands of lockstep chains; this sweep measures where the chip actually
+The single-device value proposition of this package is that one GPU runs
+thousands of lockstep chains; this sweep measures where the device actually
 saturates on two BASELINE.md anchors (banana-32 and funnel-16, float32) and
 what the per-iteration cost looks like at the knee. Each invocation measures
 ONE (target, n_chain) point (the flat-tree NUTS program takes minutes to
@@ -12,8 +12,9 @@ cheap) and appends a JSON record to ``benchmarks/results.jsonl``:
     python benchmarks/scaling_bench.py funnel16 65536
 
 Reported per point: warmup + post iteration throughput, leapfrogs/sec,
-ESS/sec/chip (with cross-group error), mean tree size, and the implied HBM
-traffic against the chip's measured streaming bandwidth (see ``bench.py``).
+ESS/sec (with cross-group error), mean tree size, and the implied memory
+traffic against the device's measured streaming bandwidth (see
+``bench.py``). Exits non-zero without a GPU.
 """
 
 import json
@@ -26,14 +27,15 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from _common import setup_cache  # noqa: E402
+from _common import device_report, require_gpu, setup_cache  # noqa: E402
 
 setup_cache()
+require_gpu()
 
 
 def make_density(target):
     import jax.numpy as jnp
-    import bayesfast_tpu as bf
+    import bayesfast_jax as bf
 
     if target == 'banana32':
         from scipy.stats import special_ortho_group
@@ -77,8 +79,8 @@ def main():
     n_post = int(os.environ.get('BENCH_N_POST', 300))
 
     import jax.numpy as jnp  # noqa: F401
-    import bayesfast_tpu as bf
-    from bayesfast_tpu.utils.acor import effective_sample_size
+    import bayesfast_jax as bf
+    from bayesfast_jax.utils.acor import effective_sample_size
     import bench
 
     den, extra, D = make_density(target)
@@ -111,39 +113,39 @@ def main():
     implied_gbs = lf_per_sec * bytes_per_leaf / 1e9
     copy_bw = bench._measured_copy_bw(jnp)
     # FLOP side: banana32's density is 2 (C,D)x(D,D) rotations per leaf,
-    # so its roofline is the measured MXU matmul peak. funnel16 has no
-    # matmul at all — its ~10 D elementwise flops/leaf run on the VPU, so
-    # it gets a separate implied_vpu_tflops field and the (multi-second)
-    # matmul-peak micro-bench is skipped for it.
+    # so its roofline is the measured matmul rate. funnel16 has no matmul
+    # at all — its ~10 D elementwise flops/leaf get a separate
+    # implied_elementwise_tflops field and the (multi-second) matmul
+    # micro-bench is skipped for it.
     has_matmul = target == 'banana32'
     if has_matmul:
         flops_per_leaf = 4 * D * D
         implied_tflops = lf_per_sec * flops_per_leaf / 1e12
-        mm_peak = bench._measured_matmul_tflops(jnp)
+        mm_rate = bench._measured_matmul_tflops(jnp)
     else:
-        implied_vpu_tflops = lf_per_sec * 10 * D / 1e12
+        implied_ew_tflops = lf_per_sec * 10 * D / 1e12
 
     rec = {
-        'metric': f'scaling_{target}',
+        'metric': f'scaling_{target}', 'device': device_report(),
         'n_chain': n_chain, 'dtype': 'float32',
         'warmup_iters_per_sec': round(n_chain * (n_warmup - 2) / dt_warm, 1),
         'post_iters_per_sec': round(n_chain * n_post / dt_post, 1),
         'leapfrogs_per_sec': round(lf_per_sec, 0),
-        'ess_per_sec_per_chip': round(ess / dt_post, 1),
+        'ess_per_sec_per_device': round(ess / dt_post, 1),
         'ess_per_sec_err': round(ess_err / dt_post, 1),
         'mean_tree_depth_post': round(depth_post, 2),
         'mean_tree_size_post': round(size_post, 1),
-        'implied_hbm_gb_per_sec': round(implied_gbs, 1),
-        'measured_stream_bw_gb_per_sec': round(copy_bw, 1),
-        'hbm_utilization': round(implied_gbs / copy_bw, 4),
+        'implied_mem_gb_per_sec': implied_gbs,
+        'measured_copy_bw_gb_per_sec': copy_bw,
+        'mem_share_of_measured_copy': implied_gbs / copy_bw,
         'sample_wall_s': round(dt_warm + dt_post, 1),
     }
     if has_matmul:
         rec['implied_matmul_tflops'] = round(implied_tflops, 4)
-        rec['measured_matmul_peak_tflops'] = round(mm_peak, 1)
-        rec['mxu_utilization'] = round(implied_tflops / mm_peak, 5)
+        rec['measured_matmul_tflops'] = mm_rate
+        rec['matmul_share_of_measured'] = implied_tflops / mm_rate
     else:
-        rec['implied_vpu_tflops'] = round(implied_vpu_tflops, 5)
+        rec['implied_elementwise_tflops'] = implied_ew_tflops
     print(json.dumps(rec))
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         'results.jsonl')

@@ -24,7 +24,7 @@ jax.config.update('jax_enable_x64', True)
 import jax.numpy as jnp
 from scipy.stats import special_ortho_group
 
-import bayesfast_tpu as bf
+import bayesfast_jax as bf
 
 
 def main():

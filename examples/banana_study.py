@@ -55,7 +55,7 @@ def rotation():
 
 
 def make_density(A):
-    import bayesfast_tpu as bf
+    import bayesfast_jax as bf
     bound = np.stack((np.full(D, -HALF), np.full(D, HALF))).T
     const = float(D * np.log(2 * HALF))
     A_j = jnp.asarray(A)
@@ -127,7 +127,7 @@ def _evidence_suite(x_p, logp_fn, logp_p, n_q, sit_seed,
     """Run the selected estimators on one (chains, iters, dim) sample
     block. Each fits its own SIT flow (~minutes at banana scale), so
     per-seed MCMC runs default to GBS only."""
-    import bayesfast_tpu as bf
+    import bayesfast_jax as bf
     res = {}
     if 'gbs' in estimators:
         est = bf.evidence.GBS(n_q=n_q, sit={'random_generator': sit_seed})
@@ -170,8 +170,8 @@ def leg_iid(args):
 def leg_mcmc(args):
     """Seeded reference-configuration MCMC + evidence runs (one JSON line
     per seed; all seeds share one process so compiles amortize)."""
-    import bayesfast_tpu as bf
-    from bayesfast_tpu.utils.acor import integrated_time, rhat
+    import bayesfast_jax as bf
+    from bayesfast_jax.utils.acor import integrated_time, rhat
 
     A = rotation()
     den = make_density(A)

@@ -18,8 +18,8 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.modules import PolyConfig, PolyModel, Gaussian
+import bayesfast_jax as bf
+from bayesfast_jax.modules import PolyConfig, PolyModel, Gaussian
 
 D = 27
 N_DATA = 457

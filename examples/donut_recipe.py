@@ -11,7 +11,7 @@ evaluations for a converged posterior at radius 5).
 import numpy as np
 import jax.numpy as jnp
 
-import bayesfast_tpu as bf
+import bayesfast_jax as bf
 
 
 def main():

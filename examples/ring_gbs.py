@@ -9,7 +9,7 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-import bayesfast_tpu as bf
+import bayesfast_jax as bf
 
 
 def main():

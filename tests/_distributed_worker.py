@@ -1,4 +1,4 @@
-"""Worker process for the multi-process (DCN) test.
+"""Worker process for the multi-process test.
 
 Roles:
   dist <out> <pid> <nproc> <port> — join a jax.distributed cluster of
@@ -28,8 +28,8 @@ def main():
 
     import numpy as np
     import jax.numpy as jnp
-    import bayesfast_tpu as bf
-    from bayesfast_tpu.parallel.mesh import make_mesh_2d
+    import bayesfast_jax as bf
+    from bayesfast_jax.parallel.mesh import make_mesh_2d
 
     devs = jax.devices()
     assert len(devs) == 8, f'expected 8 global devices, got {devs}'
@@ -45,7 +45,7 @@ def main():
                    verbose=False, mesh=mesh)
 
     # pooled metric: the Welford reduction is a psum crossing the host
-    # (DCN) axis of the mesh
+    # (per-process) axis of the mesh
     bf.utils.set_generator(14)
     tt2 = bf.sample(den, {'n_chain': 8, 'n_iter': 40, 'n_warmup': 20,
                           'pooled_metric': True},

@@ -7,7 +7,7 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-import bayesfast_tpu as bf
+import bayesfast_jax as bf
 
 
 def _density():
@@ -22,7 +22,7 @@ def test_mesh_sharded_save_resume(tmp_path):
     device array would pin the old sharding)."""
     import jax
     import pickle
-    from bayesfast_tpu.parallel.mesh import make_mesh
+    from bayesfast_jax.parallel.mesh import make_mesh
 
     mesh = make_mesh(jax.devices()[:8])
     den = _density()

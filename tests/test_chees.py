@@ -1,11 +1,11 @@
-"""ChEES-HMC: adaptive-trajectory-length sampler (TPU-native extension;
+"""ChEES-HMC: adaptive-trajectory-length sampler (an extension;
 Hoffman, Radul & Sountsov 2021)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import bayesfast_tpu as bf
+import bayesfast_jax as bf
 
 
 def test_chees_std_normal_moments():

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bayesfast_tpu.ops import constraint as con
+from bayesfast_jax.ops import constraint as con
 
 BOUND_CASES = [[False, False], [False, True], [True, False], [True, True]]
 
@@ -113,7 +113,7 @@ def test_fused_logdet_extreme_x_float32():
     exp(x) overflowed to inf at x > ~88.7 in float32 and 0*inf NaN-poisoned
     unbounded dims. The fused transform must stay exact and finite at
     |x| ~ 100 wherever the unfused path is."""
-    from bayesfast_tpu import config
+    from bayesfast_jax import config
 
     old = config.get_dtype()
     config.set_dtype(jnp.float32)

@@ -1,9 +1,9 @@
-"""Multi-process (DCN) validation: 2 jax.distributed processes x 4 CPU
+"""Multi-process validation: 2 jax.distributed processes x 4 CPU
 devices vs one process x 8 devices, same (2, 4) host-chip mesh.
 
 This closes the last structural unknown that CAN be closed without real
-multi-host hardware (VERDICT r3 item 3): the distributed runtime, the
-global mesh spanning a process boundary, the cross-DCN psum of the pooled
+multi-host hardware: the distributed runtime, the
+global mesh spanning a process boundary, the cross-process psum of the pooled
 metric, and the allgather that brings sharded results back to every host.
 The single-process run must be reproduced (bitwise for the collective-free
 path).
@@ -64,7 +64,7 @@ def test_two_process_mesh_matches_single(tmp_path):
     assert np.array_equal(a['s'], b['s']), (
         'distributed sampler diverged from the single-process run')
     assert np.array_equal(a['logp'], b['logp'])
-    # pooled metric crosses DCN (psum over the host axis); reduction
+    # pooled metric crosses processes (psum over the host axis); reduction
     # association may differ across partitionings, so allow float slop
     assert np.allclose(a['s_pooled'], b['s_pooled'], atol=1e-8), (
         np.max(np.abs(a['s_pooled'] - b['s_pooled'])))

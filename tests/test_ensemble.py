@@ -4,7 +4,7 @@ reference's planned-but-stubbed sampler)."""
 import numpy as np
 import jax.numpy as jnp
 
-import bayesfast_tpu as bf
+import bayesfast_jax as bf
 
 
 def test_ensemble_gaussian_moments():

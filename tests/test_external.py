@@ -4,8 +4,8 @@ the true model is host-only numpy, surrogate sampling stays on device."""
 import numpy as np
 import jax.numpy as jnp
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.modules import PolyModel
+import bayesfast_jax as bf
+from bayesfast_jax.modules import PolyModel
 
 
 # a 'black-box' numpy forward model (pretend it is an external pipeline)

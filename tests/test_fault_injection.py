@@ -14,10 +14,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.core.module import Module
-from bayesfast_tpu.core.recipe import _stack_logp
-from bayesfast_tpu.modules import PolyModel
+import bayesfast_jax as bf
+from bayesfast_jax.core.module import Module
+from bayesfast_jax.core.recipe import _stack_logp
+from bayesfast_jax.modules import PolyModel
 
 
 def _fails(x):
@@ -90,7 +90,7 @@ def test_logp_cutoff_all_bad_raises():
     # integration path cannot deterministically produce a 100% failure
     # batch (the decay penalty keeps surrogate samples near the clean fit
     # region).
-    from bayesfast_tpu.utils import VariableDict
+    from bayesfast_jax.utils import VariableDict
 
     den = _faulty_density(lambda x: jnp.full(x.shape[:-1] or (), True))
     sam = bf.recipe.SampleStep(

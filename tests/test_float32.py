@@ -1,4 +1,4 @@
-"""float32 statistical test tier (VERDICT round-1 item 3).
+"""float32 statistical test tier.
 
 Everything else in the suite runs float64; these tests flip x64 off so the
 whole sampling path — starts, descent, step probe, adaptation, NUTS — runs
@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import bayesfast_tpu as bf
+import bayesfast_jax as bf
 
 
 @pytest.fixture(autouse=True)

@@ -4,7 +4,7 @@ import numpy as np
 import jax
 from scipy.stats import multivariate_normal
 
-from bayesfast_tpu.modules import Gaussian
+from bayesfast_jax.modules import Gaussian
 
 
 def test_uni_gaussian():

@@ -4,8 +4,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.evidence import GBS
+import bayesfast_jax as bf
+from bayesfast_jax.evidence import GBS
 
 
 def test_nuts_then_gbs_logz():

@@ -14,10 +14,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.parallel.mesh import (make_mesh, make_mesh_2d, set_mesh,
+import bayesfast_jax as bf
+from bayesfast_jax.parallel.mesh import (make_mesh, make_mesh_2d, set_mesh,
                                          shard_batch, mesh_size)
-from bayesfast_tpu.ops.kde_pallas import kde_cdf_batch
+from bayesfast_jax.ops.kde import kde_cdf_batch
 
 
 @pytest.fixture
@@ -81,10 +81,6 @@ def test_two_axis_mesh_sampler_equivalence():
     den = bf.DensityLite(logp=lambda x: -0.5 * jnp.sum(x ** 2),
                          input_size=D, vectorized=True)
     try:
-        # this is a SHARDING-equivalence test: pin one kernel, since under
-        # the 'auto' default the unsharded run would pick the Pallas
-        # megakernel (different random stream than the mesh run's XLA path)
-        bf.config.set_nuts_kernel('xla')
         bf.utils.set_generator(11)
         tt_m = bf.sample(den, {'n_chain': 16, 'n_iter': 5, 'n_warmup': 3},
                          verbose=False, mesh=mesh2)
@@ -93,23 +89,23 @@ def test_two_axis_mesh_sampler_equivalence():
                          verbose=False, mesh=None)
         assert np.allclose(tt_m.samples, tt_s.samples, atol=1e-12)
     finally:
-        bf.config.set_nuts_kernel('auto')
         set_mesh(None)
 
 
-def test_mesh_pallas_bitwise_matches_single(mesh8):
-    """With the global-chain-indexed kernel RNG, a mesh-sharded Pallas
-    sampling run is bitwise identical to the unsharded Pallas run —
-    the driver dispatches the megakernel through shard_map on the mesh
-    (round-4 VERDICT next-step #2)."""
+def test_mesh_sampler_matches_single(mesh8):
+    """A chain-sharded run through warmup (dual averaging + Welford) and
+    past it matches the unsharded run on the same seed: the tree kernel's
+    random draws are defined independently of how the chain axis is laid
+    out, so only float reassociation could separate the two."""
     D = 3
     den = bf.DensityLite(logp=lambda x: -0.5 * jnp.sum(x ** 2),
                          input_size=D, vectorized=True)
     cfg = {'n_chain': 16, 'n_iter': 60, 'n_warmup': 30}
     bf.utils.set_generator(21)
     tt_m = bf.sample(den, dict(cfg), verbose=False, mesh=mesh8)
-    assert tt_m.trace._nuts_kernel_pinned == 'pallas'
+    assert len(tt_m.trace._carry.q.sharding.device_set) == 8
     bf.utils.set_generator(21)
     tt_s = bf.sample(den, dict(cfg), verbose=False, mesh=None)
-    assert tt_s.trace._nuts_kernel_pinned == 'pallas'
-    assert np.array_equal(tt_m.samples, tt_s.samples)
+    assert np.allclose(tt_m.samples, tt_s.samples, atol=1e-10)
+    assert np.array_equal(tt_m.trace._stats_arrays['tree_depth'],
+                          tt_s.trace._stats_arrays['tree_depth'])

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from bayesfast_tpu import native
-from bayesfast_tpu.utils import sobol as sobol_mod
-from bayesfast_tpu.utils.cubic import cubic_spline
+from bayesfast_jax import native
+from bayesfast_jax.utils import sobol as sobol_mod
+from bayesfast_jax.utils.cubic import cubic_spline
 
 
 @pytest.fixture(scope='module')

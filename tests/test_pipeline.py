@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.core.module import Module
-from bayesfast_tpu.modules import PolyModel, Gaussian, Sum
-from bayesfast_tpu.utils.collections import VariableDict
+import bayesfast_jax as bf
+from bayesfast_jax.core.module import Module
+from bayesfast_jax.modules import PolyModel, Gaussian, Sum
+from bayesfast_jax.utils.collections import VariableDict
 
 
 def _donut_pipeline(use_surrogate_cfg=False):

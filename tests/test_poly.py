@@ -4,8 +4,8 @@ recovery of a known cubic polynomial), plus masked-config and bound tests."""
 import numpy as np
 import jax
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.modules import PolyConfig, PolyModel
+import bayesfast_jax as bf
+from bayesfast_jax.modules import PolyConfig, PolyModel
 
 rng = np.random.default_rng(0)
 x = rng.normal(size=(60, 4))

@@ -1,4 +1,4 @@
-"""Pooled cross-chain metric adaptation (TPU-native extension).
+"""Pooled cross-chain metric adaptation (an extension).
 
 With C chains feeding one shared Welford accumulator, the mass matrix sees
 C samples per iteration — adaptation converges in ~1/C of the warmup
@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.samplers.metrics import (init_diag_metric,
+import bayesfast_jax as bf
+from bayesfast_jax.samplers.metrics import (init_diag_metric,
                                             init_full_metric, update_metric,
                                             update_metric_pooled)
 
@@ -50,7 +50,7 @@ def test_pooled_diag_sampling():
 def test_pooled_metric_sharded_mesh():
     # pooled adaptation across a sharded chain axis: the batch Welford
     # merge becomes an XLA collective (psum) over the 8-device mesh
-    from bayesfast_tpu.parallel import make_mesh, set_mesh
+    from bayesfast_jax.parallel import make_mesh, set_mesh
     set_mesh(make_mesh())
     try:
         bf.utils.set_generator(6)

@@ -13,8 +13,8 @@ import time
 import numpy as np
 import pytest
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.utils.parallel import (ParallelBackend, get_backend,
+import bayesfast_jax as bf
+from bayesfast_jax.utils.parallel import (ParallelBackend, get_backend,
                                           set_backend)
 
 _BUSY_S = 0.12
@@ -87,7 +87,7 @@ def test_process_backend_context_reuse(_restore_backend):
 
 
 def test_process_backend_after_device_sampling(_restore_backend):
-    """Round-4 VERDICT #7: forking a JAX-initialized parent is a latent
+    """Forking a JAX-initialized parent is a latent
     deadlock. The 'forkserver' default must keep process pools usable
     AFTER device work has run in the parent."""
     import jax
@@ -100,3 +100,22 @@ def test_process_backend_after_device_sampling(_restore_backend):
     with ParallelBackend(2, kind='processes') as b:
         out = b.map(_busy_logp, [np.ones(3)] * 4)
     assert np.isclose(out[0][0], -3.0)
+
+
+def _worker_platform(_):
+    import os
+    import jax
+    return (os.environ.get('JAX_PLATFORMS'), jax.config.jax_platforms,
+            jax.default_backend())
+
+
+@pytest.mark.parametrize('mp_context', ['forkserver', 'spawn'])
+def test_process_workers_report_cpu_backend(_restore_backend, monkeypatch,
+                                            mp_context):
+    """Pool workers are pinned to JAX's CPU backend whatever the parent's
+    environment says, so a worker can never reserve the accelerator the
+    parent process holds."""
+    monkeypatch.setenv('JAX_PLATFORMS', '')
+    with ParallelBackend(2, kind='processes', mp_context=mp_context) as b:
+        out = b.map(_worker_platform, [0, 1])
+    assert out == [('cpu', 'cpu', 'cpu')] * 2

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.core.module import Module
-from bayesfast_tpu.modules import PolyModel
+import bayesfast_jax as bf
+from bayesfast_jax.core.module import Module
+from bayesfast_jax.modules import PolyModel
 
 
 def _make_density():

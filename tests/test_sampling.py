@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.parallel import make_mesh, set_mesh
+import bayesfast_jax as bf
+from bayesfast_jax.parallel import make_mesh, set_mesh
 
 
 @pytest.fixture(autouse=True)

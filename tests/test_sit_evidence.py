@@ -8,12 +8,12 @@ logz-within-error on an unnormalized Gaussian with known evidence.
 import numpy as np
 import pytest
 
-import bayesfast_tpu as bf
-from bayesfast_tpu.utils.cubic import cubic_spline, CubicSplineSet
-from bayesfast_tpu.utils.kde import kde
-from bayesfast_tpu.ops.ica import fast_ica
-from bayesfast_tpu.transforms import SIT
-from bayesfast_tpu.evidence import GBS, GIS, GHM, bridge, importance
+import bayesfast_jax as bf
+from bayesfast_jax.utils.cubic import cubic_spline, CubicSplineSet
+from bayesfast_jax.utils.kde import kde
+from bayesfast_jax.ops.ica import fast_ica
+from bayesfast_jax.transforms import SIT
+from bayesfast_jax.evidence import GBS, GIS, GHM, bridge, importance
 
 import jax
 
@@ -156,7 +156,7 @@ def test_triangle_plot_fallback():
     import matplotlib
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
-    from bayesfast_tpu.transforms import SIT
+    from bayesfast_jax.transforms import SIT
 
     rng = np.random.default_rng(0)
     data = rng.normal(size=(500, 3)) * [1.0, 2.0, 0.5]
@@ -170,8 +170,8 @@ def test_triangle_plot_fallback():
 def test_device_kde_fit_matches_host():
     """The float32 device KDE-cdf fit path (used automatically on
     accelerator-backed hosts) must reproduce the float64 host fits."""
-    from bayesfast_tpu import config as bfc
-    from bayesfast_tpu.transforms import SIT
+    from bayesfast_jax import config as bfc
+    from bayesfast_jax.transforms import SIT
 
     rng = np.random.default_rng(0)
     n = 40000  # above the batched-device-fit threshold (n * dim >= 1e5)

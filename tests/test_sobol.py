@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from bayesfast_tpu.utils import sobol
+from bayesfast_jax.utils import sobol
 
 
 def test_sobol_1d_golden():

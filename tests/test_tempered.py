@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import bayesfast_tpu as bf
+import bayesfast_jax as bf
 
 
 def _densities(dim=4):
